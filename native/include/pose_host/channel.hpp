@@ -1,5 +1,5 @@
 // Bounded MPMC channel — the back-pressure primitive of the stream
-// pipeline (TPU-native rebuild of the reference's src/channel.hpp [MED;
+// pipeline (rebuild of the reference's src/channel.hpp [MED;
 // empty reference mount — see SURVEY.md]; written from scratch).
 #pragma once
 

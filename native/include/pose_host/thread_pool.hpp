@@ -1,4 +1,4 @@
-// Fixed-size worker pool over a bounded task channel (TPU-native rebuild
+// Fixed-size worker pool over a bounded task channel (rebuild
 // of the reference's src/thread_pool.hpp [MED; empty reference mount —
 // SURVEY.md §2]; written from scratch). The stream loader uses dedicated
 // worker loops; this generic pool serves ad-hoc host-side parallelism

@@ -1,5 +1,5 @@
 // Header-only RAII scope tracer: cumulative wall time + call counts per
-// scope, hierarchical report (TPU-native rebuild of the reference's
+// scope, hierarchical report (rebuild of the reference's
 // src/tracer.h TRACE_SCOPE facility [MED; empty reference mount —
 // SURVEY.md §5]; written from scratch).
 #pragma once

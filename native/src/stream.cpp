@@ -1,9 +1,9 @@
 // Pipelined stream loader + C API for ctypes binding.
 //
-// TPU-native rebuild of the reference's stream pipeline host side
+// Rebuild of the reference's stream pipeline host side
 // (src/stream_detector.cpp + thread_pool [MED; empty reference mount —
 // SURVEY.md §2 "Stream detector"]): worker threads decode+letterbox frames
-// into ready uint8 batches behind a bounded channel; on TPU the DNN AND
+// into ready uint8 batches behind a bounded channel; on device the DNN AND
 // the grouping run inside one jit graph, so decode/resize is the only
 // host stage left to pipeline (the reference needed three stages because
 // its PAF parser ran on the host).

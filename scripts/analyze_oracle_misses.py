@@ -47,7 +47,7 @@ def main() -> None:
                     help="analyze with the fragment-merge repair pass ON "
                          "(PostprocConfig.fragment_merge_rel=0.5)")
     ap.add_argument("--cpu", action="store_true",
-                    help="decode on CPU (leave the TPU chip to other jobs; "
+                    help="decode on CPU (leave the accelerator to other jobs; "
                          "the decoder is platform-agnostic and the analysis "
                          "is offline)")
     args = ap.parse_args()
@@ -59,17 +59,17 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from openpose_plus_tpu import skeleton
-    from openpose_plus_tpu.config import PostprocConfig
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
-    from openpose_plus_tpu.data.targets import make_targets
-    from openpose_plus_tpu.eval_coco import compute_oks, humans_to_detections
-    from openpose_plus_tpu.postproc import build_decoder
+    from openpose_plus import skeleton
+    from openpose_plus.config import PostprocConfig
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
+    from openpose_plus.data.targets import make_targets
+    from openpose_plus.eval_coco import compute_oks, humans_to_detections
+    from openpose_plus.postproc import build_decoder
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(apb.HERE, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from openpose_plus.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     geo = apb.GEOMETRIES[args.geometry]
     val_ann, val_imgs = make_scene_bank(

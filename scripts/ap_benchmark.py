@@ -1,7 +1,7 @@
 """Standing synthetic AP benchmark — the quality axis of BASELINE.md.
 
 Trains each zoo model on the seeded TRAIN scene bank and evaluates
-keypoint AP on the HELD-OUT val bank (openpose_plus_tpu/data/synthetic.py
+keypoint AP on the HELD-OUT val bank (openpose_plus/data/synthetic.py
 — crowds, overlap, 3x scale variation, truncation, clutter) under
 cumulative inference settings, so the AP-improving machinery carries
 MEASURED deltas instead of docstring claims:
@@ -65,7 +65,6 @@ BANK_DIR = os.path.join(HERE, ".ap_bench")
 
 MODELS = ("mobilenet_thin", "vggtiny", "hao28", "vgg19")
 VARIANTS = ("base", "fidelity", "fidelity_tta", "fidelity_tta_ms")
-EXTRA_VARIANTS = ("fidelity_int8",)   # opt-in via --int8
 MS_STUDY_VARIANTS = ("fidelity_tta_ms15", "fidelity_tta_msup",
                      "fidelity_tta_msdd")
 # fragment-merge repair pass (PostprocConfig.fragment_merge_rel=0.5, the
@@ -123,7 +122,7 @@ def _save_results(res: dict) -> None:
 
 def build_config(model: str, ann: str, imgs: str, steps: int, lr: float,
                  geo: dict, lr_scaling: str = "none"):
-    from openpose_plus_tpu.config import default_config
+    from openpose_plus.config import default_config
 
     cfg = default_config(model)
     cfg = cfg.replace(
@@ -152,10 +151,10 @@ def train_model(model: str, steps: int, lr: float, ann: str, imgs: str,
     counts (for the convergence curve) under the same schedule tag."""
     import jax
 
-    from openpose_plus_tpu import checkpoint as ckpt
-    from openpose_plus_tpu import train as T
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus import checkpoint as ckpt
+    from openpose_plus import train as T
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.pipeline import TrainPipeline
 
     # lr and geometry are part of the cache key: rerunning with a
     # different --lr/--geometry must retrain, not silently reuse weights.
@@ -196,10 +195,9 @@ def train_model(model: str, steps: int, lr: float, ann: str, imgs: str,
     return cfg, state.params
 
 
-def eval_variant(cfg, params, variant: str, dataset,
-                 calib_dataset=None) -> dict:
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.eval_coco import evaluate_engine
+def eval_variant(cfg, params, variant: str, dataset) -> dict:
+    from openpose_plus.engine import Engine
+    from openpose_plus.eval_coco import evaluate_engine
 
     ecfg = cfg
     if variant != "base":
@@ -207,17 +205,7 @@ def eval_variant(cfg, params, variant: str, dataset,
     if variant.endswith("_fm"):
         ecfg = ecfg.replace(postproc=dataclasses.replace(
             ecfg.postproc, fragment_merge_rel=0.5))
-    if variant == "fidelity_int8":
-        # quantization QUALITY cost (the TensorRT int8-accuracy
-        # question): same float weights, int8 engine
-        ecfg = ecfg.replace(model=dataclasses.replace(
-            ecfg.model, compute_dtype="int8"))
     eng = Engine(ecfg, params=params)
-    if variant == "fidelity_int8" and calib_dataset is not None:
-        # TensorRT protocol: activation scales come from a TRAIN-side
-        # calibration set, never the eval images (r4 verdict item #6)
-        eng.calibrate_from_paths(
-            [calib_dataset[i].image_path for i in range(8)])
     kwargs = {}
     if variant.startswith("fidelity_tta"):
         kwargs["flip_tta"] = True
@@ -242,11 +230,11 @@ def _stamp(out: dict, steps: int, lr: float, geo: dict) -> dict:
 
 
 def run_model(model: str, steps: int, lr: float, force: bool,
-              int8: bool = False, geometry: str = "small",
+              geometry: str = "small",
               ms_study: bool = False, lr_scaling: str = "none",
               frag_merge: bool = False) -> None:
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
 
     geo = GEOMETRIES[geometry]
     train_ann, train_imgs = make_scene_bank(
@@ -263,15 +251,13 @@ def run_model(model: str, steps: int, lr: float, force: bool,
     ms_variants = MS_STUDY_VARIANTS
     if geometry == "serving":
         # msup's 2.0x scale at serving geometry means a 736x864 engine
-        # per model — a 20+ min cold compile on the remote-compile rig
-        # for a variant whose question (does upscaling buy resolution?)
+        # per model — a long cold compile for a variant whose question (does upscaling buy resolution?)
         # the serving tier already answers by construction; ms15 covers
         # the upper-only hypothesis here. Studied at the small tier and
         # on val_large, where the engines are cheap.
         ms_variants = tuple(v for v in ms_variants
                             if v != "fidelity_tta_msup")
-    pool = (VARIANTS + (EXTRA_VARIANTS if int8 else ())
-            + (ms_variants if ms_study else ())
+    pool = (VARIANTS + (ms_variants if ms_study else ())
             + (FM_VARIANTS if frag_merge else ()))
     # Single-engine variants first, multi-scale (ms*) last: ms variants
     # cold-compile one extra engine per scale, so an interrupted run
@@ -288,10 +274,8 @@ def run_model(model: str, steps: int, lr: float, force: bool,
     cfg, params = train_model(model, steps, lr, train_ann, train_imgs, geo,
                               lr_scaling=lr_scaling)
     val_set = CocoPoseDataset(val_ann, val_imgs)
-    calib_set = CocoPoseDataset(train_ann, train_imgs)
     for variant in missing:
-        out = _stamp(eval_variant(cfg, params, variant, val_set,
-                                  calib_dataset=calib_set),
+        out = _stamp(eval_variant(cfg, params, variant, val_set),
                      steps, lr, geo)
         row[variant] = out
         res = _load_results()
@@ -331,14 +315,14 @@ def run_oracle(force: bool, geometry: str = "small", out_stride: int = 8,
     import jax
     import numpy as np
 
-    from openpose_plus_tpu.config import PostprocConfig
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
-    from openpose_plus_tpu.data.targets import make_targets
-    from openpose_plus_tpu.eval_coco import (Detection,
+    from openpose_plus.config import PostprocConfig
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
+    from openpose_plus.data.targets import make_targets
+    from openpose_plus.eval_coco import (Detection,
                                              evaluate_detections_full,
                                              humans_to_detections)
-    from openpose_plus_tpu.postproc import build_decoder
+    from openpose_plus.postproc import build_decoder
 
     geo = GEOMETRIES[geometry]
     val_ann, val_imgs = make_scene_bank(
@@ -435,8 +419,8 @@ def run_oracle(force: bool, geometry: str = "small", out_stride: int = 8,
 def run_large(model: str, steps: int, lr: float, force: bool) -> None:
     """Evaluate small-tier weights on the val_large bank (few frame-
     filling figures): the regime slice of the multi-scale TTA study."""
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
 
     geo = GEOMETRIES["small"]
     train_ann, train_imgs = make_scene_bank(
@@ -473,9 +457,9 @@ def run_curve(model: str, steps_list: tuple[int, ...], lr: float,
               force: bool, geometry: str = "small") -> None:
     """One continuous run to max(steps_list) with a stretched lr schedule;
     +tta AP at each snapshot -> the AP-vs-steps convergence curve."""
-    from openpose_plus_tpu import checkpoint as ckpt
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
+    from openpose_plus import checkpoint as ckpt
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
 
     geo = GEOMETRIES[geometry]
     train_ann, train_imgs = make_scene_bank(
@@ -520,7 +504,7 @@ def print_table() -> None:
         keys = [m for m in MODELS if (m + suffix) in res]
         if not keys:
             continue
-        cols = VARIANTS + EXTRA_VARIANTS + MS_STUDY_VARIANTS + FM_VARIANTS
+        cols = VARIANTS + MS_STUDY_VARIANTS + FM_VARIANTS
         present = [c for c in cols
                    if any(c in res[m + suffix] for m in keys)]
         print(f"\n### {title}\n")
@@ -575,9 +559,6 @@ def main() -> None:
                     default="none",
                     help="train with the geometry-transfer lr rule; results "
                          "record under <model><tier>#lrrule")
-    ap.add_argument("--int8", action="store_true",
-                    help="also evaluate the int8 engine at fidelity settings "
-                         "(quantization AP cost)")
     ap.add_argument("--frag-merge", action="store_true",
                     help="also evaluate the fragment-merge repair pass "
                          "(fidelity_fm / fidelity_tta_fm variants)")
@@ -606,9 +587,9 @@ def main() -> None:
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(HERE, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from openpose_plus.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     os.makedirs(BANK_DIR, exist_ok=True)
 
     if args.oracle:
@@ -627,7 +608,7 @@ def main() -> None:
         elif args.large_bank:
             run_large(m, args.steps, args.lr, args.force)
         else:
-            run_model(m, args.steps, args.lr, args.force, int8=args.int8,
+            run_model(m, args.steps, args.lr, args.force,
                       geometry=args.geometry, ms_study=args.ms_study,
                       lr_scaling=args.lr_scaling,
                       frag_merge=args.frag_merge)

@@ -75,7 +75,7 @@ def main() -> None:
     photo_dir = make_photo_set(args.src_h, args.src_w, args.n)
     paths = sorted(glob.glob(os.path.join(photo_dir, "*.jpg")))
 
-    from openpose_plus_tpu import native
+    from openpose_plus import native
 
     name = (f"stream_fps_{args.model}_{args.hin}x{args.win}_bs{args.batch}"
             f"_src{args.src_h}x{args.src_w}"
@@ -99,15 +99,14 @@ def main() -> None:
 
         import jax
 
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        from openpose_plus.utils.compile_cache import (
+            configure_compile_cache)
 
-        from openpose_plus_tpu.config import default_config
-        from openpose_plus_tpu.engine import Engine
-        from openpose_plus_tpu.stream import StreamEstimator
+        configure_compile_cache()
+
+        from openpose_plus.config import default_config
+        from openpose_plus.engine import Engine
+        from openpose_plus.stream import StreamEstimator
 
         cfg = default_config(args.model)
         cfg = cfg.replace(model=dataclasses.replace(

@@ -41,14 +41,12 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from openpose_plus.utils.compile_cache import configure_compile_cache
 
-    from openpose_plus_tpu import train as T
-    from openpose_plus_tpu.config import default_config
+    configure_compile_cache()
+
+    from openpose_plus import train as T
+    from openpose_plus.config import default_config
 
     cfg = default_config(args.model)
     cfg = cfg.replace(

@@ -33,7 +33,7 @@ def make_synthetic_dataset(out_dir: str, n_images: int, size: int = 256,
     """Stick-figure scenes + COCO-format annotations."""
     import cv2
 
-    from openpose_plus_tpu import skeleton
+    from openpose_plus import skeleton
 
     img_dir = os.path.join(out_dir, "images")
     os.makedirs(img_dir, exist_ok=True)
@@ -43,9 +43,7 @@ def make_synthetic_dataset(out_dir: str, n_images: int, size: int = 256,
     for i in range(n_images):
         img = rng.integers(0, 60, (size, size, 3), dtype=np.uint8)
         n_people = int(rng.integers(1, 4))
-        sys.path.insert(0, os.path.join(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__))), "tests"))
-        from maputil import standing_person
+        from openpose_plus.data.scenes import standing_person
 
         for _ in range(n_people):
             s = rng.uniform(size / 48, size / 24)  # pixels per canonical unit
@@ -104,11 +102,11 @@ def main() -> int:
 
     import jax
 
-    from openpose_plus_tpu import train as T
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.eval_coco import evaluate_engine
+    from openpose_plus import train as T
+    from openpose_plus.config import default_config
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.engine import Engine
+    from openpose_plus.eval_coco import evaluate_engine
 
     workdir = args.workdir or tempfile.mkdtemp(prefix="synth_e2e_")
     ann, imgs = make_synthetic_dataset(workdir, args.n_images, args.size)
@@ -139,7 +137,7 @@ def main() -> int:
                                 limit=args.eval_limit)
 
     # train (reuse train_loop internals minimally: manual loop for control)
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus.data.pipeline import TrainPipeline
 
     pipeline = TrainPipeline(dataset, cfg, seed=0)
     step_fn = T.make_train_step_on_batch(cfg)

@@ -38,25 +38,24 @@ def main() -> None:
                     help="train is the tuning protocol; val only for "
                          "post-hoc sensitivity reporting")
     ap.add_argument("--cpu", action="store_true",
-                    help="decode on CPU (leave the TPU to other jobs)")
+                    help="decode on CPU (leave the accelerator to other jobs)")
     args = ap.parse_args()
 
     import jax
 
+    from openpose_plus.utils.compile_cache import configure_compile_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(apb.HERE, ".jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    configure_compile_cache()
 
-    from openpose_plus_tpu.config import PostprocConfig
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.synthetic import make_scene_bank
-    from openpose_plus_tpu.data.targets import make_targets
-    from openpose_plus_tpu.eval_coco import (evaluate_detections_full,
+    from openpose_plus.config import PostprocConfig
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.synthetic import make_scene_bank
+    from openpose_plus.data.targets import make_targets
+    from openpose_plus.eval_coco import (evaluate_detections_full,
                                              humans_to_detections)
-    from openpose_plus_tpu.postproc import build_decoder
+    from openpose_plus.postproc import build_decoder
 
     geo = apb.GEOMETRIES[args.geometry]
     n = geo["n_train"] if args.bank == "train" else geo["n_val"]

@@ -1,9 +1,7 @@
 """Unit test for the bench timing harness (bench.fori_slope_seconds).
 
 The harness's job is to report the per-iteration device time of a chained
-loop INDEPENDENT of fixed per-dispatch cost (the ADVICE.md r1 finding: the
-dev rig's dispatch latency swings ~80 us .. ~2.5 ms between windows and
-polluted host-chained measurements). Simulate a device with a virtual
+loop INDEPENDENT of fixed per-dispatch cost. Simulate a device with a virtual
 clock: each loop_fn(n, carry) call costs `overhead + n * per_iter`, and
 the slope estimate must recover per_iter exactly, whatever the overhead.
 """
@@ -74,7 +72,7 @@ def test_slope_median_rejects_degraded_pass(monkeypatch):
 
 
 def test_nonpositive_slopes_discarded_not_clamped(monkeypatch):
-    # ADVICE.md r2 (medium): a multi-second spike landing on the SMALL
+    # A multi-second spike landing on the SMALL
     # pass makes (t_large - t_small) negative; the old clamp-to-1e-9 fed
     # that into min() and recorded absurd figures (e.g. 8e9 FPS). Such
     # samples must be discarded and the harness must still recover
@@ -119,3 +117,31 @@ def test_all_passes_degraded_raises(monkeypatch):
         assert "no positive slope" in str(e)
     else:
         raise AssertionError("expected RuntimeError on all-degraded rig")
+
+
+def test_peaks_known_for_h100():
+    row = bench.utilization_row(989e12, 3.35e12, 1.0,
+                                "NVIDIA H100 80GB HBM3")
+    assert abs(row["mfu_pct"] - 100.0) < 1e-9
+    assert abs(row["mem_pct_est"] - 100.0) < 1e-9
+
+
+def test_unknown_device_gets_no_utilization():
+    for kind in ("cpu", "NVIDIA A100-SXM4-80GB", "H100"):
+        row = bench.utilization_row(1e12, 1e9, 1.0, kind)
+        assert "mfu_pct" not in row and "mem_pct_est" not in row
+        assert row["achieved_tflops"] == 1.0
+
+
+def test_bench_refuses_without_gpu():
+    """No CPU fallback: main() stops before timing anything."""
+    import jax
+
+    if jax.default_backend() == "gpu":
+        return
+    try:
+        bench.main()
+    except SystemExit as e:
+        assert "GPU" in str(e)
+    else:
+        raise AssertionError("bench.main() ran without a GPU")

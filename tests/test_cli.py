@@ -9,7 +9,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from openpose_plus_tpu import cli
+from openpose_plus import cli
 
 
 @pytest.fixture

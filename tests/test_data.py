@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import skeleton
-from openpose_plus_tpu.config import DataConfig, ModelConfig
-from openpose_plus_tpu.data import augment as A
-from openpose_plus_tpu.data import coco as C
-from openpose_plus_tpu.data import targets as T
+from openpose_plus import skeleton
+from openpose_plus.config import DataConfig, ModelConfig
+from openpose_plus.data import augment as A
+from openpose_plus.data import coco as C
+from openpose_plus.data import targets as T
 
 
 # ----------------------------------------------------------- GT targets ---

@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.config import default_config
-from openpose_plus_tpu.engine import Engine
-from openpose_plus_tpu.parallel import sharding as S
+from openpose_plus.config import default_config
+from openpose_plus.engine import Engine
+from openpose_plus.parallel import sharding as S
 
 
 def _tiny(model="vggtiny"):
@@ -68,7 +68,7 @@ def test_engine_fast_init_structure():
 
 def test_engine_chunked_infer_matches_unchunked(rng):
     """chunk=N serves the batch as lax.map over N-sized sub-batches in one
-    program (large-batch alternate-memory fix); results must be identical
+    program (bounds the large-batch working set); results must be identical
     to the plain batched lowering."""
     cfg = _tiny()
     a = Engine(cfg, seed=0)
@@ -130,7 +130,7 @@ def test_engine_s2d_input_layout_matches_plain(rng):
     """The space-to-depth input layout (B, hin/2, win/2, 12) — same bytes,
     block-permuted — must produce the same skeletons as the plain layout,
     in every serving mode (plain, flip-TTA, multiscale)."""
-    from openpose_plus_tpu.models.common import space_to_depth
+    from openpose_plus.models.common import space_to_depth
 
     cfg = _tiny("mobilenet_thin")
     eng = Engine(cfg, seed=2)

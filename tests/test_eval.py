@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import eval_coco as E
+from openpose_plus import eval_coco as E
 
 
 def _gt_person(rng, cx, cy, spread=40.0):
@@ -192,11 +192,11 @@ def test_evaluate_engine_native_and_python_paths_agree(tmp_path, monkeypatch):
 
     import jax
 
-    from openpose_plus_tpu import native
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.eval_coco import evaluate_engine
+    from openpose_plus import native
+    from openpose_plus.config import default_config
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.engine import Engine
+    from openpose_plus.eval_coco import evaluate_engine
     from tests.test_train import _write_fake_dataset
 
     ann, imgs = _write_fake_dataset(tmp_path)

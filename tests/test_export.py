@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import export as E
-from openpose_plus_tpu.config import default_config
-from openpose_plus_tpu.engine import Engine
+from openpose_plus import export as E
+from openpose_plus.config import default_config
+from openpose_plus.engine import Engine
 
 
 def test_export_roundtrip(tmp_path, rng):
@@ -34,7 +34,7 @@ def test_export_roundtrip(tmp_path, rng):
 def test_export_s2d2_layout_roundtrip(tmp_path, rng):
     """Artifacts can bake the space-to-depth-squared input signature; the
     loaded engine then consumes exactly what the host loader emits."""
-    from openpose_plus_tpu.models.common import space_to_depth
+    from openpose_plus.models.common import space_to_depth
 
     import jax.numpy as jnp
 
@@ -89,3 +89,28 @@ def test_exported_s2d2_artifact_accepts_plain_images(tmp_path, rng):
     np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
     np.testing.assert_allclose(np.asarray(a.coords), np.asarray(b.coords),
                                atol=1e-5)
+
+
+def test_export_needs_no_flatbuffers(tmp_path, rng, monkeypatch):
+    """GPU hosts need not have `flatbuffers` (jax.export's own
+    serializer): the artifact is the module bytes plus a manifest
+    signature, and loading rebuilds the Exported from them."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "flatbuffers", None)
+    monkeypatch.setitem(sys.modules, "jax._src.export.serialization", None)
+    cfg = default_config("mobilenet_thin")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=32, win=48, n_stages=2, compute_dtype="float32"))
+    eng = Engine(cfg)
+    path = str(tmp_path / "artifact")
+    E.save_engine(eng, path, batch_size=2)
+    loaded = E.load_engine(path)
+    sig = loaded.manifest["signature"]
+    assert sig["in_avals"] == [[[2, 32, 48, 3], "uint8"]]
+    assert loaded.manifest["jaxlib_version"]
+    images = rng.integers(0, 255, (2, 32, 48, 3), dtype=np.uint8)
+    a, b = eng.infer(images), loaded.infer(images)
+    for f in E._OUTPUTS:
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f)))

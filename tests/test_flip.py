@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from openpose_plus_tpu import skeleton
-from openpose_plus_tpu.data import targets as T
-from openpose_plus_tpu.postproc import flip
+from openpose_plus import skeleton
+from openpose_plus.data import targets as T
+from openpose_plus.postproc import flip
 
 
 def test_mirror_is_involution(rng):
@@ -43,8 +43,8 @@ def test_mirror_matches_mirrored_scene(rng):
 def test_engine_flip_tta(rng):
     import dataclasses
 
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.engine import Engine
+    from openpose_plus.config import default_config
+    from openpose_plus.engine import Engine
 
     cfg = default_config("vggtiny")
     cfg = cfg.replace(model=dataclasses.replace(

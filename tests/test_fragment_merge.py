@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from openpose_plus_tpu.postproc.decode import _merge_fragments_single
+from openpose_plus.postproc.decode import _merge_fragments_single
 
 W, H = 432, 368
 M = 8
@@ -88,8 +88,8 @@ def test_chain_merge_three_fragments():
 def test_rel_zero_disables_in_decode():
     """PostprocConfig.fragment_merge_rel=0 keeps the decode graph
     unchanged (reference parity): decode_maps traces without the pass."""
-    from openpose_plus_tpu.config import PostprocConfig
-    from openpose_plus_tpu.postproc import decode_maps
+    from openpose_plus.config import PostprocConfig
+    from openpose_plus.postproc import decode_maps
 
     cfg = PostprocConfig(max_peaks=4, max_humans=4, upsample_factor=1)
     conf = np.zeros((1, 16, 16, 19), np.float32)
@@ -102,8 +102,8 @@ def test_merge_inside_decode_jit():
     """The pass traces inside the jitted batched decoder."""
     import dataclasses
 
-    from openpose_plus_tpu.config import PostprocConfig
-    from openpose_plus_tpu.postproc import build_decoder
+    from openpose_plus.config import PostprocConfig
+    from openpose_plus.postproc import build_decoder
 
     cfg = dataclasses.replace(
         PostprocConfig(max_peaks=4, max_humans=4, upsample_factor=1),
@@ -117,7 +117,7 @@ def test_merge_inside_decode_jit():
 
 def test_quality_preset():
     """quality() = fidelity() + the frozen fragment-merge threshold."""
-    from openpose_plus_tpu.config import PostprocConfig
+    from openpose_plus.config import PostprocConfig
 
     q = PostprocConfig().quality()
     f = PostprocConfig().fidelity()

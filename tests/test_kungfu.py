@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import train as T
-from openpose_plus_tpu.config import default_config
-from openpose_plus_tpu.parallel import kungfu as kf
-from openpose_plus_tpu.parallel import sharding as S
+from openpose_plus import train as T
+from openpose_plus.config import default_config
+from openpose_plus.parallel import kungfu as kf
+from openpose_plus.parallel import sharding as S
 
 from tests.test_train import _fake_batch, _tiny_config
 
@@ -160,7 +160,7 @@ def test_strategies_learn(rng):
 def test_train_loop_with_sma_strategy(tmp_path):
     """train_loop end-to-end under a decentralized strategy: per-device
     replicas, checkpointing worker 0's replica, resume restacking."""
-    from openpose_plus_tpu import checkpoint as ckpt
+    from openpose_plus import checkpoint as ckpt
     from tests.test_train import _write_fake_dataset
 
     ann, imgs = _write_fake_dataset(tmp_path)

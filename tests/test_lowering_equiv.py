@@ -1,11 +1,10 @@
-"""Equivalence of the TPU-shaped lowerings vs their plain-XLA twins.
+"""Equivalence of the decoder's lowerings vs plain references.
 
-Two postproc stages ship two numerically identical lowerings (selected by
-postproc.common.tpu_backend()):
-  * PAF sampling: XLA gather (CPU) vs one-hot MXU contraction (TPU)
-  * peak top-k:  lax.top_k semantics vs iterative argmax (all backends)
-These tests pin BIT-EXACT agreement so the backend switch can never change
-results — the oracle-parity suite then covers either lowering.
+  * PAF sampling: XLA gather (on the raw and on the upsampled map) vs a
+    plain numpy nearest-neighbour sampler
+  * upsample+smooth: the fused operator vs the two-stage path
+  * subpixel refine: one-hot patch extraction vs scalar taps
+  * peak top-k: iterative argmax vs lax.top_k semantics
 """
 
 import jax
@@ -13,21 +12,32 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.postproc import nms, paf as jpaf
+from openpose_plus import skeleton
+from openpose_plus.postproc import nms, oracle, paf as jpaf
+
+
+def _numpy_sample(pafm, sy, sx):
+    """Nearest-neighbour reads of each limb's (x, y) PAF channels."""
+    chans = skeleton.paf_channels_array()
+    cx = chans[:, 0][:, None, None, None]
+    cy = chans[:, 1][:, None, None, None]
+    return pafm[sy, sx, cx], pafm[sy, sx, cy]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("h,w", [(46, 54), (92, 164)])
-def test_onehot_sampling_matches_gather(seed, h, w):
+def test_gather_sampling_matches_numpy(seed, h, w):
     rng = np.random.default_rng(seed)
-    pafm = jnp.asarray(rng.random((h, w, 38), np.float32) - 0.5)
+    pafm = rng.random((h, w, 38), np.float32) - 0.5
     l, s, k = 19, 10, 8
-    sy = jnp.asarray(rng.integers(0, h, (l, s, k, k), np.int32))
-    sx = jnp.asarray(rng.integers(0, w, (l, s, k, k), np.int32))
-    gx, gy = jax.jit(jpaf._sample_paf_gather)(pafm, sy, sx)
-    ox, oy = jax.jit(jpaf._sample_paf_onehot)(pafm, sy, sx)
-    np.testing.assert_array_equal(np.asarray(gx), np.asarray(ox))
-    np.testing.assert_array_equal(np.asarray(gy), np.asarray(oy))
+    sy = rng.integers(0, h, (l, s, k, k)).astype(np.int32)
+    sx = rng.integers(0, w, (l, s, k, k)).astype(np.int32)
+    gx, gy = jax.jit(jpaf._sample_paf_gather)(jnp.asarray(pafm),
+                                               jnp.asarray(sy),
+                                               jnp.asarray(sx))
+    nx, ny = _numpy_sample(pafm, sy, sx)
+    np.testing.assert_array_equal(np.asarray(gx), nx)
+    np.testing.assert_array_equal(np.asarray(gy), ny)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -35,30 +45,27 @@ def test_onehot_sampling_matches_gather(seed, h, w):
 @pytest.mark.parametrize("h,w", [(46, 54),   # net output aspect (wide)
                                  (64, 48),   # tall
                                  (48, 48)])  # square
-def test_lowres_sampling_matches_upsampled(seed, factor, h, w):
-    """Factored 2-hot sampling on the RAW map == gather on the materialized
-    jax.image.resize upsample to ~1 ulp: the resize weights are bit-equal
-    (dyadic for power-of-two factors) but XLA dots use FMA, so the two
-    lowerings' reduction trees round differently in the last bit. Values
-    are O(1), so a couple of float32 ulps (~2.4e-7) bounds the difference."""
+def test_upsampled_sampling_matches_numpy(seed, factor, h, w):
+    """score_candidates' lowres path (nms.upsample + gather) vs numpy NN
+    sampling of the oracle's upsample, edge rows/cols included (single-tap
+    renormalized weights). The two upsamples agree to float tolerance, as
+    in test_postproc_parity.test_preprocess_numerics."""
     rng = np.random.default_rng(seed)
-    pafm = jnp.asarray(rng.random((h, w, 38), np.float32) - 0.5)
-    paf_u = nms.upsample(pafm, factor)
+    pafm = rng.random((h, w, 38), np.float32) - 0.5
     hu, wu = h * factor, w * factor
     l, s, k = 19, 10, 8
     sy = rng.integers(0, hu, (l, s, k, k)).astype(np.int32)
     sx = rng.integers(0, wu, (l, s, k, k)).astype(np.int32)
-    # force edge rows/cols into the set (single-tap renormalized weights)
     sy[:, 0, 0, :] = 0
     sy[:, 0, 1, :] = hu - 1
     sx[:, 1, 0, :] = 0
     sx[:, 1, 1, :] = wu - 1
-    sy, sx = jnp.asarray(sy), jnp.asarray(sx)
-    gx, gy = jax.jit(jpaf._sample_paf_gather)(paf_u, sy, sx)
-    fx, fy = jax.jit(
-        lambda p, a, b: jpaf._sample_paf_lowres(p, a, b, factor))(pafm, sy, sx)
-    np.testing.assert_allclose(np.asarray(gx), np.asarray(fx), atol=2.4e-7)
-    np.testing.assert_allclose(np.asarray(gy), np.asarray(fy), atol=2.4e-7)
+    gx, gy = jax.jit(lambda p, a, b: jpaf._sample_paf_gather(
+        nms.upsample(p, factor), a, b))(jnp.asarray(pafm), jnp.asarray(sy),
+                                        jnp.asarray(sx))
+    nx, ny = _numpy_sample(oracle.upsample_maps(pafm, factor), sy, sx)
+    np.testing.assert_allclose(np.asarray(gx), nx, atol=2e-6)
+    np.testing.assert_allclose(np.asarray(gy), ny, atol=2e-6)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -135,62 +142,3 @@ def test_topk_iterative_matches_lax_topk(seed):
                                   np.asarray(i_it)[finite])
     # -inf slots: scores agree (index may differ; consumers mask on score)
     np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_it))
-
-
-@pytest.mark.parametrize("c_in,c_out,h,w", [(64, 128, 12, 16), (24, 32, 9, 11)])
-def test_fused_sepconv_matches_xla(c_in, c_out, h, w):
-    """Pallas fused DW+PW (interpret mode) vs the XLA separable-conv path."""
-    from flax import linen as nn
-
-    from openpose_plus_tpu.models.common import SepConvRelu
-    from openpose_plus_tpu.ops.pallas import sepconv
-
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal((2, h, w, c_in)).astype(np.float32))
-    mod = SepConvRelu(c_out, compute_dtype="bfloat16")
-    params = mod.init(jax.random.PRNGKey(0), x)
-    ref = mod.apply(params, x.astype(jnp.bfloat16))
-
-    p = params["params"]
-    import functools
-    fused = functools.partial(
-        sepconv.fused_sepconv, dw_kernel=p["dw_kernel"], dw_bias=p["dw_bias"],
-        pw_kernel=p["pw_kernel"], pw_bias=p["pw_bias"])
-    import unittest.mock
-    from jax.experimental import pallas as pl
-    with unittest.mock.patch.object(
-            pl, "pallas_call", functools.partial(pl.pallas_call,
-                                                 interpret=True)):
-        out = fused(x.astype(jnp.bfloat16))
-    assert out.dtype == jnp.bfloat16
-    np.testing.assert_allclose(
-        np.asarray(ref, np.float32), np.asarray(out, np.float32),
-        rtol=0.05, atol=0.05)
-    # identical fraction should be high: same math, different assoc. order
-    same = np.mean(np.asarray(ref, np.float32) == np.asarray(out, np.float32))
-    assert same > 0.8
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("h,w", [(46, 54), (92, 164)])
-def test_pallas_paf_sampler_matches_gather(seed, h, w):
-    """Pallas in-VMEM sampler (interpret mode) vs gather — bit-exact."""
-    import functools
-    import unittest.mock
-
-    from jax.experimental import pallas as pl
-
-    from openpose_plus_tpu.ops.pallas.paf_sample import sample_paf_pallas
-
-    rng = np.random.default_rng(seed)
-    pafm = jnp.asarray(rng.random((h, w, 38), np.float32) - 0.5)
-    l, s, k = 19, 10, 16
-    sy = jnp.asarray(rng.integers(0, h, (l, s, k, k), np.int32))
-    sx = jnp.asarray(rng.integers(0, w, (l, s, k, k), np.int32))
-    gx, gy = jax.jit(jpaf._sample_paf_gather)(pafm, sy, sx)
-    with unittest.mock.patch.object(
-            pl, "pallas_call", functools.partial(pl.pallas_call,
-                                                 interpret=True)):
-        ox, oy = sample_paf_pallas(pafm, sy, sx)
-    np.testing.assert_array_equal(np.asarray(gx), np.asarray(ox))
-    np.testing.assert_array_equal(np.asarray(gy), np.asarray(oy))

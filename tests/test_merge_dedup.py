@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.config import default_config
-from openpose_plus_tpu.postproc import HumanBatch, merge_dedup
+from openpose_plus.config import default_config
+from openpose_plus.postproc import HumanBatch, merge_dedup
 
 
 def _mk_batch(coords, scores, M=8):
@@ -104,7 +104,7 @@ def test_dedup_jit_and_batched():
 
 def test_engine_dedup_combiner_runs(rng):
     """Engine combine="dedup" end-to-end smoke: well-formed, compacted."""
-    from openpose_plus_tpu.engine import Engine
+    from openpose_plus.engine import Engine
 
     cfg = default_config("vggtiny")
     cfg = cfg.replace(model=dataclasses.replace(

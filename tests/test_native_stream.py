@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import native
+from openpose_plus import native
 
 cv2 = pytest.importorskip("cv2")
 
@@ -48,7 +48,7 @@ def test_native_decode_matches_cv2(image_dir):
         img, scale, pads = out
         assert img.shape == (368, 432, 3)
         ref = cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
-        from openpose_plus_tpu.data.augment import letterbox as lb
+        from openpose_plus.data.augment import letterbox as lb
         ref_img, ref_scale, ref_pads = lb(ref, 368, 432)
         assert scale == pytest.approx(ref_scale, rel=1e-5)
         assert pads[0] == pytest.approx(ref_pads[0], abs=0.51)
@@ -66,7 +66,7 @@ def test_dct_scaled_decode_preserves_letterbox_contract(tmp_path):
     was computed against the decoded plane, silently shifting every
     detection (native-path eval AP collapsed to 0 while the python path
     scored 0.26)."""
-    from openpose_plus_tpu.data.augment import letterbox as lb
+    from openpose_plus.data.augment import letterbox as lb
 
     for h, w in [(1024, 1536), (513, 511), (2000, 600)]:
         p = str(tmp_path / f"big_{h}x{w}.jpg")
@@ -100,7 +100,7 @@ def test_native_letterbox_raw_frame():
     frame = _gradient_image(90, 200)
     img, scale, pads = native.letterbox(frame, 368, 432)
     assert img.shape == (368, 432, 3)
-    from openpose_plus_tpu.data.augment import letterbox as lb
+    from openpose_plus.data.augment import letterbox as lb
     ref_img, ref_scale, _ = lb(frame, 368, 432)
     assert scale == pytest.approx(ref_scale, rel=1e-5)
     diff = np.abs(img.astype(int) - ref_img.astype(int))
@@ -139,9 +139,9 @@ def test_tracer_report(image_dir):
 
 
 def test_stream_estimator_end_to_end(image_dir):
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.stream import StreamEstimator
+    from openpose_plus.config import default_config
+    from openpose_plus.engine import Engine
+    from openpose_plus.stream import StreamEstimator
 
     cfg = default_config("vggtiny")
     cfg = cfg.replace(model=dataclasses.replace(
@@ -156,9 +156,9 @@ def test_stream_estimator_end_to_end(image_dir):
 
 
 def test_stream_estimator_frames(image_dir):
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.stream import StreamEstimator
+    from openpose_plus.config import default_config
+    from openpose_plus.engine import Engine
+    from openpose_plus.stream import StreamEstimator
 
     cfg = default_config("vggtiny")
     cfg = cfg.replace(model=dataclasses.replace(
@@ -204,9 +204,9 @@ def test_stream_loader_s2d_layout(image_dir):
 def test_stream_estimator_uses_s2d_for_mobilenet(image_dir):
     """End-to-end: the estimator auto-selects the s2d layout for the s2d
     stem and the engine consumes it."""
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.stream import StreamEstimator
+    from openpose_plus.config import default_config
+    from openpose_plus.engine import Engine
+    from openpose_plus.stream import StreamEstimator
 
     cfg = default_config("mobilenet_thin")
     cfg = cfg.replace(model=dataclasses.replace(

@@ -1,7 +1,9 @@
-"""Pallas merge kernel vs the XLA reference merge — bit-identical results.
+"""Pallas (Triton route) merge kernel vs the XLA reference merge —
+bit-identical results.
 
 Runs in Pallas interpret mode on the CPU test mesh; the same comparison on
-real TPU hardware happens in the bench/verify flow.
+the GPU runs in chip_smoke.py (phase 4) and tests/test_chip_smoke.py under
+`-m chip`.
 """
 
 import functools
@@ -11,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.ops.pallas.merge import assemble_pallas
-from openpose_plus_tpu.postproc import group
-from openpose_plus_tpu.postproc.paf import Connections
+from openpose_plus.ops.pallas.merge import assemble_pallas
+from openpose_plus.postproc import group
+from openpose_plus.postproc.paf import Connections
 
 
 def _random_conns(rng, n_limbs=19, k=8, density=0.5):
@@ -34,10 +36,10 @@ def _random_conns(rng, n_limbs=19, k=8, density=0.5):
         score=jnp.asarray(score), valid=jnp.asarray(valid))
 
 
-@pytest.mark.parametrize("seed", range(8))
-def test_pallas_merge_matches_xla(seed):
+@pytest.mark.parametrize("seed,k,m", [(s, 8, 16) for s in range(8)]
+                         + [(0, 32, 32), (1, 32, 32), (2, 32, 20)])
+def test_pallas_merge_matches_xla(seed, k, m):
     rng = np.random.default_rng(seed)
-    k, m = 8, 16
     conns = _random_conns(rng, k=k)
     peak_score = jnp.asarray(
         rng.uniform(0.1, 1.0, (18, k)).astype(np.float32))
@@ -48,7 +50,7 @@ def test_pallas_merge_matches_xla(seed):
     np.testing.assert_array_equal(np.asarray(out.parts), np.asarray(ref.parts))
     np.testing.assert_array_equal(np.asarray(out.count), np.asarray(ref.count))
     # bit-exact: the kernel groups every scalar sub-sum exactly like
-    # group.assemble (e.g. score + (b_ps + cscore)) — verified on hardware
+    # group.assemble (e.g. score + (b_ps + cscore))
     np.testing.assert_array_equal(np.asarray(out.score), np.asarray(ref.score))
 
 

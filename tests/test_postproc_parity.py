@@ -11,11 +11,11 @@ import dataclasses
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import skeleton
-from openpose_plus_tpu.config import PostprocConfig
-from openpose_plus_tpu.postproc import decode, nms, oracle, paf as jpaf
+from openpose_plus import skeleton
+from openpose_plus.config import PostprocConfig
+from openpose_plus.postproc import decode, nms, oracle, paf as jpaf
 
-from tests import maputil
+from openpose_plus.data import scenes
 
 CFG = PostprocConfig(upsample_factor=2, smooth_sigma=1.0, max_peaks=16,
                      max_humans=32)
@@ -57,9 +57,9 @@ def _scene(noise=0.0, seed=0, n_people=2):
     # lexicographic tie-break (one peak per plateau, lowest flat index)
     # must agree between both implementations either way, but fractional
     # centers also exercise the no-tie path.
-    people = [maputil.standing_person(12.3 + 14.6 * i, 20.2, 0.9 + 0.11 * i)
+    people = [scenes.standing_person(12.3 + 14.6 * i, 20.2, 0.9 + 0.11 * i)
               for i in range(n_people)]
-    return maputil.make_maps(people, 46, 54, noise=noise, seed=seed)
+    return scenes.make_maps(people, 46, 54, noise=noise, seed=seed)
 
 
 # ---------------------------------------------------------------- peaks ---
@@ -70,8 +70,8 @@ def test_plateau_dedup():
     index, identically in oracle and JAX. Regression: without the
     lexicographic tie-break every plateau pixel became a separate peak,
     saturating top-k and fragmenting assembly."""
-    people = [maputil.standing_person(10, 8), maputil.standing_person(10, 30)]
-    conf, paf_map = maputil.make_maps(people, 46, 54)
+    people = [scenes.standing_person(10, 8), scenes.standing_person(10, 30)]
+    conf, paf_map = scenes.make_maps(people, 46, 54)
     smoothed, _ = _prep(conf, paf_map, CFG)
     o = oracle.find_peaks(smoothed, CFG.peak_threshold, CFG.max_peaks)
     j = nms.find_peaks(np.asarray(smoothed), CFG.peak_threshold,

@@ -10,8 +10,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.config import PostprocConfig
-from tests import maputil
+from openpose_plus.config import PostprocConfig
+from openpose_plus.data import scenes
 from tests.test_postproc_parity import (_assert_same_humans, _decode_both,
                                         _jax_humans)
 
@@ -32,10 +32,10 @@ def test_stress_parity(ci, seed):
     rng = np.random.default_rng(1000 * ci + seed)
     kind = seed % 4
     if kind == 0:    # sparse people + noise
-        people = [maputil.standing_person(
+        people = [scenes.standing_person(
             rng.uniform(10, 30), rng.uniform(14, 26), rng.uniform(0.7, 1.1))
             for _ in range(rng.integers(1, 4))]
-        conf, paf = maputil.make_maps(people, 40, 48,
+        conf, paf = scenes.make_maps(people, 40, 48,
                                       noise=rng.uniform(0, 0.2),
                                       seed=int(rng.integers(1 << 30)))
     elif kind == 1:  # pure uniform noise

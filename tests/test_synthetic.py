@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from openpose_plus_tpu.data.coco import CocoPoseDataset
-from openpose_plus_tpu.data.synthetic import make_scene_bank, render_scene
+from openpose_plus.data.coco import CocoPoseDataset
+from openpose_plus.data.synthetic import make_scene_bank, render_scene
 
 
 def test_bank_is_deterministic(tmp_path):

@@ -9,11 +9,11 @@ import jax
 import numpy as np
 import pytest
 
-from openpose_plus_tpu import checkpoint as ckpt
-from openpose_plus_tpu import train as T
-from openpose_plus_tpu.config import default_config
-from openpose_plus_tpu.data.targets import make_targets_batch
-from openpose_plus_tpu.parallel import sharding as S
+from openpose_plus import checkpoint as ckpt
+from openpose_plus import train as T
+from openpose_plus.config import default_config
+from openpose_plus.data.targets import make_targets_batch
+from openpose_plus.parallel import sharding as S
 
 
 def _tiny_config(batch=4, spatial=1):
@@ -187,8 +187,8 @@ def test_train_loop_end_to_end(tmp_path):
 def test_pipeline_skips_corrupt_images(tmp_path):
     """A corrupt/missing image file must not kill the workers (which would
     hang training forever on q.get); it is skipped with a warning."""
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.pipeline import TrainPipeline
 
     ann, imgs = _write_fake_dataset(tmp_path, n_images=6)
     # corrupt two of the files
@@ -207,8 +207,8 @@ def test_pipeline_skips_corrupt_images(tmp_path):
 def test_pipeline_raises_when_workers_die(tmp_path):
     """If every sample is unreadable the iterator raises instead of
     hanging forever."""
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.pipeline import TrainPipeline
     import pytest
 
     ann, imgs = _write_fake_dataset(tmp_path, n_images=2)
@@ -226,8 +226,8 @@ def test_pipeline_raises_when_workers_die(tmp_path):
 def test_pipeline_shards_are_disjoint(tmp_path):
     """Rank-strided sharding: two hosts' pipelines draw from disjoint
     sample sets covering the dataset (reference dataset.shard)."""
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.pipeline import TrainPipeline
 
     ann, imgs = _write_fake_dataset(tmp_path, n_images=6)
     ds = CocoPoseDataset(ann, imgs)
@@ -243,8 +243,8 @@ def test_pipeline_emits_model_preferred_layout(tmp_path):
     """The train pipeline ships images in the model's fastest input
     layout (saves ~1.2 ms/step of on-device relayout); the jit step
     consumes it unchanged."""
-    from openpose_plus_tpu.data.coco import CocoPoseDataset
-    from openpose_plus_tpu.data.pipeline import TrainPipeline
+    from openpose_plus.data.coco import CocoPoseDataset
+    from openpose_plus.data.pipeline import TrainPipeline
 
     ann, imgs = _write_fake_dataset(tmp_path)
     cfg = _tiny_config(batch=4)
@@ -335,7 +335,7 @@ def test_adam_loss_scale_invariance(rng):
         import optax
 
         model_cfg = cfg.model.train_lowering()
-        from openpose_plus_tpu.models import get_model
+        from openpose_plus.models import get_model
         model = get_model(model_cfg)
         # eps=1e-12: the invariance m/sqrt(v) is exact as eps -> 0. At the
         # default eps=1e-8 the scaled run deviates ONLY on near-zero-
@@ -345,7 +345,7 @@ def test_adam_loss_scale_invariance(rng):
         tx = optax.adam(cfg.train.lr_init, eps=1e-12)
         state = T.create_train_state(cfg, jax.random.PRNGKey(0))
         params, opt_state = state.params, tx.init(state.params)
-        from openpose_plus_tpu.engine import preprocess_images
+        from openpose_plus.engine import preprocess_images
         images = preprocess_images(jnp.asarray(batch["images"]))
         gt_conf, gt_paf = make_targets_batch(
             jnp.asarray(batch["keypoints"]), cfg.model, cfg.data)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from openpose_plus_tpu.utils.tracer import Tracer, timeit
+from openpose_plus.utils.tracer import Tracer, timeit
 
 
 def test_tracer_nested_scopes():
@@ -33,9 +33,9 @@ def test_draw_humans_and_to_list(rng):
     cv2 = pytest.importorskip("cv2")
     import dataclasses
 
-    from openpose_plus_tpu.config import default_config
-    from openpose_plus_tpu.engine import Engine
-    from openpose_plus_tpu.utils.vis import draw_humans, draw_maps_overlay
+    from openpose_plus.config import default_config
+    from openpose_plus.engine import Engine
+    from openpose_plus.utils.vis import draw_humans, draw_maps_overlay
 
     cfg = default_config("vggtiny")
     cfg = cfg.replace(model=dataclasses.replace(
