@@ -80,13 +80,14 @@ def _rebuild(sig: dict, platforms, module: bytes):
 
 
 def save_engine(engine: Engine, path: str, batch_size: int = 1,
-                input_layout: str = "plain") -> None:
+                input_layout: str = "plain"):
     """Export the engine for a fixed batch size to `path/` (dir).
 
     input_layout: "plain" (B,hin,win,3), "s2d" (B,hin/2,win/2,12) or
     "s2d2" (B,hin/4,win/4,48) — the space-to-depth layouts the host
     loader emits (Engine.compile docstring); baked into the artifact's
-    input signature and recorded in the manifest."""
+    input signature and recorded in the manifest. Returns the
+    jax.export.Exported that was written."""
     from jax import export as jexport
 
     from openpose_plus.engine import check_input_layout
@@ -109,6 +110,7 @@ def save_engine(engine: Engine, path: str, batch_size: int = 1,
     # it, and the manifest records the jaxlib it is tied to.
     exported = jexport.export(jax.jit(infer), disabled_checks=[
         jexport.DisabledSafetyCheck.custom_call(_TRITON_CALL)])(spec)
+    triton = _TRITON_CALL in exported.mlir_module()
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, _ARTIFACT), "wb") as f:
         f.write(exported.mlir_module_serialized)
@@ -125,6 +127,8 @@ def save_engine(engine: Engine, path: str, batch_size: int = 1,
             "signature": _signature(exported),
             "platforms": list(exported.platforms),
             # a Triton custom call inside ties the artifact to this jaxlib
+            # (load_engine refuses it under another one)
+            "triton_call": triton,
             "jaxlib_version": jaxlib.__version__,
             # full config so ExportedEngine.config reports what the
             # artifact was actually built with (stride, dtype, postproc
@@ -132,6 +136,7 @@ def save_engine(engine: Engine, path: str, batch_size: int = 1,
             "model_config": _dc.asdict(m),
             "postproc_config": _dc.asdict(engine.config.postproc),
         }, f, indent=2)
+    return exported
 
 
 class ExportedEngine:
@@ -148,6 +153,13 @@ class ExportedEngine:
     def __init__(self, path: str):
         with open(os.path.join(path, _MANIFEST)) as f:
             self.manifest = json.load(f)
+        built = self.manifest["jaxlib_version"]
+        if self.manifest["triton_call"] and built != jaxlib.__version__:
+            raise RuntimeError(
+                f"{path}: the artifact carries a Triton custom call, whose "
+                f"serialized form is stable only within one jaxlib; it was "
+                f"built with jaxlib {built}, this is {jaxlib.__version__}. "
+                f"Export it again with this jaxlib.")
         with open(os.path.join(path, _ARTIFACT), "rb") as f:
             self._exported = _rebuild(self.manifest["signature"],
                                       self.manifest["platforms"], f.read())

@@ -56,6 +56,61 @@ def test_cnn_error_small():
     assert 0 < err <= cs.CNN_TOL
 
 
+def test_same_skeletons_rejects_empty_tables():
+    conf, paf = cs.decoder_scenes(46, 82, 1, seed=0)
+    dec = cs.decode.build_decoder(PostprocConfig())
+    assert cs.same_skeletons(dec(conf, paf), dec(conf, paf)) > 0
+    empty = dec(0 * conf, 0 * paf)
+    with pytest.raises(cs.SmokeFailure, match="no humans"):
+        cs.same_skeletons(empty, empty)
+
+
+def test_random_weight_engine_layouts_and_export_are_not_empty():
+    """With random weights the random-weight decoder finds people, the
+    two input layouts give bit-equal maps, and the exported artifact
+    reproduces the skeletons."""
+    cfg = cs.model_config("mobilenet_thin", hin=64, win=96,
+                          n_stages=2).replace(
+        postproc=cs.RANDOM_WEIGHT_DECODER)
+    eng = cs.Engine(cfg)
+    images = cs.frames(cfg, 2, 0)
+    packed = cs.to_layout(images, cfg.model.preferred_input_layout())
+    cs.same_maps(eng.forward(packed), eng.forward(images))
+    out = eng.infer(images)
+    assert cs.same_skeletons(eng.infer(packed), out) > 0
+    manifest, n, share = cs.export_check(eng, images, out)
+    assert n > 0 and manifest["triton_call"] is False and share == 1.0
+
+
+def test_well_formed_rejects_a_miscounted_human():
+    import dataclasses
+
+    conf, paf = cs.decoder_scenes(46, 82, 2, seed=0)
+    cfg = PostprocConfig()
+    batch = cs.decode.build_decoder(cfg)(conf, paf)
+    cs.well_formed(batch, cfg)
+    bad = dataclasses.replace(batch, n_parts=batch.n_parts * 0 + 1)
+    with pytest.raises(cs.SmokeFailure, match="n_parts"):
+        cs.well_formed(bad, cfg)
+    assert cs.shared_humans(batch, batch) == 1.0
+
+
+def test_gradient_comparisons():
+    import jax.numpy as jnp
+    import optax
+
+    g = {"a": jnp.arange(1.0, 5.0), "b": jnp.ones(3)}
+    tx = optax.adam(1e-3)
+    _, st = tx.update(g, tx.init(g), g)
+    mu = cs.adam_mu(st)
+    assert cs.worst_leaf_rel(mu, {k: 0.1 * v for k, v in g.items()}) < 1e-6
+    off = {"a": g["a"], "b": 0.25 * g["b"]}
+    assert cs.worst_leaf_rel(off, g) == pytest.approx(0.75)
+    assert 0 < cs.tree_rel(off, g) < 0.75
+    with pytest.raises(cs.SmokeFailure, match="one Adam state"):
+        cs.adam_mu(optax.sgd(1e-3).init(g))
+
+
 # ------------------------------------------------------------ on the card --
 
 @pytest.mark.chip

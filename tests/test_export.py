@@ -114,3 +114,26 @@ def test_export_needs_no_flatbuffers(tmp_path, rng, monkeypatch):
     for f in E._OUTPUTS:
         np.testing.assert_array_equal(np.asarray(getattr(a, f)),
                                       np.asarray(getattr(b, f)))
+
+
+@pytest.mark.parametrize("triton", [True, False])
+def test_load_checks_jaxlib_only_for_triton_artifacts(tmp_path, triton):
+    """An artifact that carries the Triton custom call is tied to the
+    jaxlib that built it; one without it loads under any jaxlib."""
+    import json
+
+    cfg = default_config("mobilenet_thin")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, hin=32, win=48, n_stages=2, compute_dtype="float32"))
+    path = str(tmp_path / "artifact")
+    E.save_engine(Engine(cfg), path, batch_size=1)
+    manifest_path = tmp_path / "artifact" / "manifest.json"
+    manifest = json.loads(manifest_path.read_text())
+    assert manifest["triton_call"] is False   # lowered for the CPU
+    manifest.update(triton_call=triton, jaxlib_version="0.0.0")
+    manifest_path.write_text(json.dumps(manifest))
+    if triton:
+        with pytest.raises(RuntimeError, match="jaxlib 0.0.0"):
+            E.load_engine(path)
+    else:
+        assert E.load_engine(path).manifest["jaxlib_version"] == "0.0.0"
